@@ -1,8 +1,8 @@
-"""art_tpu — a TPU-native wavefront path tracer built on JAX/XLA.
+"""art — a wavefront path tracer built on JAX/XLA.
 
 Feature-parity target: slbouknight/accelerated-ray-tracer (CUDA megakernel
 path tracer implementing the "Ray Tracing in One Weekend" + "The Next Week"
-feature set).  The architecture is a from-scratch TPU-first redesign:
+feature set).  The architecture is a from-scratch wavefront redesign:
 
 * the divergent CUDA megakernel (reference src/main.cu:107-133) becomes
   wavefront path tracing over SoA ray batches advanced by ``lax.while_loop``;

@@ -1,6 +1,6 @@
 """Thin-lens + motion-blur camera as a pure ray-generation function.
 
-TPU-native redesign of the reference ``camera`` class (src/camera.cuh:18-79):
+Vectorized redesign of the reference ``camera`` class (src/camera.cuh:18-79):
 the camera is a small frozen parameter bundle; ``generate_rays`` maps a batch
 of (pixel, jitter) samples to a SoA ray batch in one vectorized pass.
 """

@@ -1,6 +1,6 @@
 """Counter-based random sampling for the wavefront tracer.
 
-TPU-native replacement for the reference's per-pixel mutable curandState
+Stateless replacement for the reference's per-pixel mutable curandState
 (reference src/main.cu:89-105, README "RNG discipline"): every random draw
 is produced from a threefry key folded with static *site* identifiers —
 ``fold(master, tile, chunk, bounce, site)`` — so the whole render is a pure
@@ -16,7 +16,7 @@ samplers:
   src/material.cuh:12-18, rejection) → gaussian direction x cbrt-radius.
 
 Both produce exactly the uniform distribution the rejection loops converge
-to, with zero divergence — TPU lanes never idle in a retry loop.
+to, with zero divergence — no lane idles in a retry loop.
 """
 
 from __future__ import annotations
@@ -43,13 +43,6 @@ def fold(key: jax.Array, *ids: int) -> jax.Array:
 def uniform(key: jax.Array, shape) -> jnp.ndarray:
     """U[0,1) float32 block."""
     return jax.random.uniform(key, shape, dtype=jnp.float32)
-
-
-# NOTE: a TPU hardware-PRNG block generator (pltpu.prng_random_bits via a
-# Pallas kernel) was tried for the per-iteration sample blocks and rejected:
-# no measurable speedup (threefry is not the bottleneck at these shapes) and
-# the simple per-iteration seeding produced visibly biased streams.  Threefry
-# keeps the render a pure, portable function of the master seed.
 
 
 def random_in_unit_disk(key: jax.Array, n: int) -> jnp.ndarray:

@@ -1,6 +1,6 @@
 """Batched 3-vector math over ``(..., 3)`` arrays.
 
-TPU-native analog of the reference ``vec3`` class (reference src/vec3.cuh:8-158):
+Vectorized analog of the reference ``vec3`` class (reference src/vec3.cuh:8-158):
 instead of a 3-float struct with operator overloads, every quantity is a jnp
 array whose last axis has size 3, and all helpers broadcast over leading
 (ray-batch) axes.  No classes — pure functions only, so everything fuses
@@ -73,8 +73,8 @@ def refract(v: jnp.ndarray, n: jnp.ndarray, ni_over_nt: jnp.ndarray):
 def schlick(cosine: jnp.ndarray, ref_idx: jnp.ndarray) -> jnp.ndarray:
     """Schlick reflectance approximation (reference src/material.cuh:38-43).
 
-    (1-c)^5 is expanded to multiplies — jnp.power lowers to exp(5*log x)
-    on the VPU."""
+    (1-c)^5 is expanded to multiplies — jnp.power lowers to
+    exp(5*log x)."""
     r0 = (1.0 - ref_idx) / (1.0 + ref_idx)
     r0 = r0 * r0
     x = 1.0 - cosine
@@ -90,12 +90,10 @@ def ray_at(origin: jnp.ndarray, direction: jnp.ndarray, t: jnp.ndarray) -> jnp.n
 # ---------------------------------------------------------------------------
 # Component-planar ("SoA of SoA") vector helpers.
 #
-# TPU arrays map their LAST axis onto the 128-lane vector dimension, so an
-# (R, 3) vector batch uses 3 of 128 lanes on every elementwise op and every
-# HBM transfer.  The hot path therefore represents a vector batch as a
-# 3-tuple of (R,) planes — full lane utilization, and zero layout conversion
-# at the Pallas kernel boundary.  The (R, 3) API above remains the portable
-# reference used by the tests and the scene compiler.
+# The hot path represents a vector batch as a 3-tuple of (R,) planes:
+# every elementwise op then streams contiguous (R,) arrays instead of a
+# strided (R, 3) layout.  The (R, 3) API above remains the portable reference used by
+# the tests and the scene compiler.
 # ---------------------------------------------------------------------------
 
 

@@ -5,7 +5,7 @@
 // it with per-pixel f-strings at ~1 MB/s-of-pixels; this native writer
 // formats the whole framebuffer in one pass (~50x faster), which matters
 // because at production resolutions the ASCII encode is a visible slice of
-// end-to-end frame time next to a ~10 s TPU render.
+// end-to-end frame time next to a render of a few seconds.
 //
 // Built on demand by utils/ppm.py:  g++ -O2 -shared -fPIC -o libppm.so
 // Exposed via ctypes; int64 inputs arrive already truncated toward zero.

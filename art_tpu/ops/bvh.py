@@ -13,20 +13,13 @@ src/bvh.cuh:29-84) on the host:
 The tree is emitted in **preorder** with *escape links*: node i's subtree
 occupies [i, escape_i), its left child is i+1, and a miss jumps straight to
 escape_i.  That turns traversal into a single monotone node counter — no
-per-lane stack — which is the TPU-friendly shape for a future Pallas
-traversal kernel (SURVEY.md §7 "stackless / fixed-size-stack iterative
-traversal").  ``traverse_closest`` is the vectorized jnp reference
-implementation used to validate the structure against brute force.
+per-lane stack — the shape a per-ray traversal kernel wants (SURVEY.md §7
+"stackless / fixed-size-stack iterative traversal").  ``traverse_closest``
+is the vectorized jnp reference implementation used to validate the
+structure against brute force.
 
-Render-path wiring (round 2): the BVH feeds the render path two ways —
-(a) ``cluster_primitives`` orders primitives in BVH-leaf order for the
-block-synchronous cluster-culled kernels (ART_TPU_CLUSTER), and (b) the
-packed node table (``pack_bvh`` -> tables.sph_bvh) drives the opt-in
+The packed node table (``pack_bvh`` -> tables.sph_bvh) drives the opt-in
 per-ray descent mode (ART_TPU_BVH=1, ops/intersect.bvh_sphere_candidates_p).
-Measured on v5e the per-ray descent loses ~144x to the brute vector scan
-(every step is a serial per-lane node gather; docs/PERF_NOTES.md "BVH
-descent"), which is why the default TPU designs are the brute unrolled
-scan, cluster culling, and the lattice grid kernel.
 """
 
 from __future__ import annotations
@@ -117,56 +110,6 @@ def build_bvh(bmin: np.ndarray, bmax: np.ndarray) -> FlatBVH:
     )
 
 
-def leaf_order(tree: FlatBVH) -> np.ndarray:
-    """Primitive indices in preorder-leaf sequence: spatially local runs."""
-    return tree.prim[tree.prim >= 0]
-
-
-def cluster_primitives(
-    bmin: np.ndarray,  # (N, 3) world-space primitive AABB minima
-    bmax: np.ndarray,  # (N, 3)
-    packed: np.ndarray,  # (N, K) kernel rows to reorder
-    cluster_size: int,
-    pad_row: np.ndarray | None = None,  # inert row for padding (never hits)
-):
-    """BVH-leaf-order clustering for block-synchronous culling.
-
-    Orders primitives by BVH preorder-leaf sequence (same split rule as the
-    reference, bvh.cuh:45-84, so adjacent leaves are spatially local), packs
-    them into fixed-size clusters, and returns:
-
-    (packed_reordered (N_pad, K), cluster_boxes (C, 8) [min(3) max(3) 0 0],
-     n_clusters, order (N,))
-
-    The Pallas kernels slab-test each cluster box against a whole ray block
-    and skip the cluster's candidates when no lane can hit it — the
-    TPU-native replacement for per-ray BVH descent (divergent pointer
-    chasing has no efficient vector form; block-uniform skipping does).
-    """
-    n = packed.shape[0]
-    tree = build_bvh(bmin, bmax)
-    order = leaf_order(tree)
-    assert len(order) == n
-
-    reordered = np.asarray(packed, np.float32)[order]
-    n_pad = -(-n // cluster_size) * cluster_size
-    if n_pad > n:
-        if pad_row is None:
-            pad_row = np.zeros((packed.shape[1],), np.float32)
-        pad = np.tile(np.asarray(pad_row, np.float32), (n_pad - n, 1))
-        reordered = np.concatenate([reordered, pad], axis=0)
-
-    n_cl = n_pad // cluster_size
-    boxes = np.zeros((n_cl, 8), np.float32)
-    bmin = np.asarray(bmin, np.float64)
-    bmax = np.asarray(bmax, np.float64)
-    for c in range(n_cl):
-        idxs = order[c * cluster_size:(c + 1) * cluster_size]
-        boxes[c, 0:3] = bmin[idxs].min(axis=0)
-        boxes[c, 3:6] = bmax[idxs].max(axis=0)
-    return reordered, boxes, n_cl, order
-
-
 def sphere_world_bounds(center, vel, radius):
     """Union of the t=0 and t=1 sphere boxes (src/sphere.cuh:33-37)."""
     c0 = np.asarray(center, np.float64)
@@ -175,32 +118,6 @@ def sphere_world_bounds(center, vel, radius):
     bmin = np.minimum(c0, c0 + v) - r
     bmax = np.maximum(c0, c0 + v) + r
     return bmin, bmax
-
-
-def box_world_bounds(bmn, bmx, cos_t, sin_t, off):
-    """World AABB of a y-rotated, translated box: 8 rotated corners
-    (reference rotate_y bbox, src/hittable.cuh:100-116)."""
-    bmn = np.asarray(bmn, np.float64)
-    bmx = np.asarray(bmx, np.float64)
-    cos_t = np.asarray(cos_t, np.float64)
-    sin_t = np.asarray(sin_t, np.float64)
-    off = np.asarray(off, np.float64)
-    n = bmn.shape[0]
-    lo = np.full((n, 3), np.inf)
-    hi = np.full((n, 3), -np.inf)
-    for ix in range(2):
-        for iy in range(2):
-            for iz in range(2):
-                x = np.where(ix, bmx[:, 0], bmn[:, 0])
-                y = np.where(iy, bmx[:, 1], bmn[:, 1])
-                z = np.where(iz, bmx[:, 2], bmn[:, 2])
-                # world = R(theta) * local + off
-                wx = cos_t * x + sin_t * z
-                wz = -sin_t * x + cos_t * z
-                pt = np.stack([wx, y, wz], axis=-1)
-                lo = np.minimum(lo, pt)
-                hi = np.maximum(hi, pt)
-    return lo + off, hi + off
 
 
 def pack_bvh(tree: FlatBVH) -> np.ndarray:
@@ -233,9 +150,8 @@ def traverse_closest_packed(nodes, n_nodes: int, prim_t_fn, o, d,
     ([min(3) max(3) escape prim], pack_bvh) — the per-ray descent analog of
     the reference's recursive bvh_node::hit (src/bvh.cuh:95-106), with the
     shrinking-tmax closest-hit rule.  Each ray walks its own node counter;
-    every step gathers that ray's node row, so on TPU this pays a serial
-    (R,) gather per step — kept as the opt-in ART_TPU_BVH path and as the
-    validation reference for the flattened structure.
+    every step gathers that ray's node row — kept as the opt-in ART_TPU_BVH
+    path and as the validation reference for the flattened structure.
 
     ``prim_t_fn(prim_idx (R,), active (R,))`` must return candidate hit t
     (R,) for each ray against its primitive (BIG on miss).  Returns

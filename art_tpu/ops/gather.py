@@ -1,15 +1,14 @@
-"""Row-fetch strategies for per-ray table lookups.
+"""Row fetches for per-ray table lookups.
 
-XLA TPU lowers gathers with per-ray random indices to slow sequential
-loops, and the wavefront does a dozen of them per bounce (material rows,
-texture rows, winner-primitive rows).  Two mitigations:
+The wavefront does a dozen per-ray lookups per bounce (material rows,
+texture rows, winner-primitive rows):
 
 * tables are *packed* so each lookup fetches one wide row instead of many
   scalar columns (one gather per table instead of per field);
-* small tables (<= ONEHOT_MAX rows) are fetched as a one-hot matmul on the
-  MXU — (R, N) @ (N, K) — which is dense, parallel, and fast.  Scene
-  material/texture tables are value-deduplicated at compile time precisely
-  so they stay under this bound.
+* small tables (<= ONEHOT_MAX rows) are fetched as a one-hot matrix
+  product (R, N) @ (N, K), larger ones with a gather.  Scene
+  material/texture tables are value-deduplicated at compile time so they
+  stay under this bound.
 """
 
 from __future__ import annotations
@@ -27,10 +26,9 @@ def take_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
         onehot = (idx[:, None] == jnp.arange(n, dtype=idx.dtype)[None, :]).astype(
             table.dtype
         )
-        # HIGHEST: the TPU default dot rounds operands to bf16, which
-        # would silently fetch bf16(table[idx]) — full-f32 passes keep
-        # the fetched rows bit-equal to the gather path (same guard as
-        # the MXU kernels in ops/pallas_kernels.py).
+        # HIGHEST: a default-precision f32 product may run in TF32 on a
+        # GPU (or bf16 elsewhere) and fetch a rounded table[idx]; full-f32
+        # passes keep the fetched rows bit-equal to the gather path.
         return jnp.dot(
             onehot, table,
             preferred_element_type=table.dtype,

@@ -1,16 +1,16 @@
 """Type-segmented batched intersection — the hot path of the tracer.
 
-TPU-native inversion of the reference's virtual ``hit()`` dispatch through a
-recursive BVH (reference src/bvh.cuh:95-106): each primitive type is
-intersected for the *whole wavefront at once*, and the closest hit is a
-masked min-reduction.  Two implementations share the same math:
+A wavefront inversion of the reference's virtual ``hit()`` dispatch
+through a recursive BVH (reference src/bvh.cuh:95-106): each primitive type
+is intersected for the *whole wavefront at once*, and the closest hit is a
+masked min-reduction.  The layers:
 
-* a **component-planar core** (``closest_surface_p`` / ``apply_media_p``)
-  operating on 3-tuples of (R,) planes — full 128-lane utilization on TPU
-  and a zero-conversion boundary with the Pallas kernels
-  (ops/pallas_kernels.py), which are used automatically on TPU backends;
-* array-of-struct wrappers (``closest_surface`` / ``apply_media``) keeping
-  the portable (R, 3) API for tests and ad-hoc use.
+* plain candidate passes per primitive family (``*_candidates_p``), left
+  to XLA to fuse;
+* winner attribute reconstruction (``*_attributes_p``) and the component-
+  planar core (``closest_surface_p`` / ``apply_media_p``) on 3-tuples of
+  (R,) planes, with array-of-struct wrappers (``closest_surface`` /
+  ``apply_media``) keeping the portable (R, 3) API for tests.
 
 Participating media (reference src/constant_medium.cuh:36-64) are resolved
 after the surface pass: each medium's convex boundary yields an analytic
@@ -26,11 +26,9 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from art_tpu.core.vecmath import (
     BIG,
-    T_MIN,
     p_cross,
     p_dot,
     p_ray_at,
@@ -94,108 +92,16 @@ def _safe_dir(d: jnp.ndarray) -> jnp.ndarray:
     return jnp.where(mag < _DIR_EPS, sign * _DIR_EPS, d)
 
 
-def _use_pallas(R: int) -> bool:
-    """Use the fused Pallas intersection kernels on TPU backends."""
-    if os.environ.get("ART_TPU_NO_PALLAS"):
-        return False
-    from art_tpu.core.platform import tpu_paths
-    from art_tpu.ops.pallas_kernels import RAY_BLOCK
-
-    return tpu_paths() and R % RAY_BLOCK == 0
-
-
-# NOTE: every ART_TPU_* perf switch below is read ONCE at import and frozen
-# into a module constant (they select trace-time code paths; reading env
-# inside traced bodies is a foot-gun — VERDICT r1).  Consequence: toggling
-# os.environ after this module is imported is a silent no-op — A/B harnesses
-# must run each variant in its own process (scripts/run_ab_static.sh does).
-# Block-synchronous cluster culling is opt-in: measured end-to-end it LOSES
-# on the mixed wavefront pool (bouncing -6%, final_scene -18% — scattered
-# survivor rays defeat block-level skips; docs/PERF_NOTES.md r2).  The
-# kernels stay as validated infrastructure for a coherence-restructured
-# integrator (coherent primary-ray phases), where they win 1.6x+.
-_CLUSTER_ENV = bool(os.environ.get("ART_TPU_CLUSTER"))
-# MXU-formulation sphere kernel (pallas_kernels.sphere_hit_attrs_mxu):
-# opt-in.  Measured end-to-end on v5e it LOSES to the unrolled VPU kernel
-# (bouncing 50.3 vs 64.8 Mrays/s with the pallas flush) — the one-hot
-# winner-gather and f32 feature matmuls cost more than the VPU loop saves
-# at 488 spheres.  Kept as validated infrastructure for much larger sphere
-# counts where O(S) VPU work would dominate.
-_MXU_SPHERES = bool(os.environ.get("ART_TPU_MXU_SPHERES"))
-# Grid-box field kernel (pallas_kernels.box_grid_hit_attrs): default-on
-# when the builder detected a lattice (tables.box_grid_kx > 0).
-_NO_GRID_BOXES = bool(os.environ.get("ART_TPU_NO_GRID_BOXES"))
-# Looped grid kernel instead of the fully-static (compile-time cell
-# table) form; A/B switch for the static unroll + height grouping.
-_NO_GRID_STATIC = bool(os.environ.get("ART_TPU_NO_GRID_STATIC"))
-# Fully-static sphere loop (compile-time sphere constants, zero table
-# loads): opt-in pending a TPU A/B vs the looped kernel.
-_SPH_STATIC = bool(os.environ.get("ART_TPU_SPH_STATIC"))
-# Expanded-quadratic static sphere loop (pack_spheres col 9): the builder
-# gates it by coordinate scale (sph_expand); on top of that it only WINS
-# past ~1k static spheres (v5e A/B: final_scene 55.2 -> 56.7 at 1008, but
-# bouncing 111.8 -> 109.8 at 488 — the extra K scalar load outweighs the
-# 3-op vector cut on smaller tables).  ART_TPU_SPH_EXPAND forces it on,
-# ART_TPU_NO_SPH_EXPAND off.
-_NO_SPH_EXPAND = bool(os.environ.get("ART_TPU_NO_SPH_EXPAND"))
-_FORCE_SPH_EXPAND = bool(os.environ.get("ART_TPU_SPH_EXPAND"))
-_SPH_EXPAND_MIN_STATIC = 768
-# A/B switches for the constant-attribute tail loop and the positive-
-# radius carry cut (pack_spheres / _sphere_kernel); both default ON when
-# the builder gates say they apply.
-_NO_SPH_TAIL = bool(os.environ.get("ART_TPU_NO_SPH_TAIL"))
-_NO_SPH_POS_R = bool(os.environ.get("ART_TPU_NO_SPH_POS_R"))
-# Compacted tail-sphere pass (ops/compact_sphere.py): slab-cull the
-# uniform 1000-ball cluster and run its rows at K << R compacted lanes
-# (adaptive lax.cond, exact).  Default ON since round 2's measured A/B
-# win (final 65.00 vs 62.48, original 59.28 vs 57.38 Mrays/s, on-chip
-# parity bit-exact — docs/logs/ab_compact_sph_r2.log); gated on a >= 512
-# row tail so it only triggers on final_scene/original_scene-class
-# clusters.  ART_TPU_NO_COMPACT_SPH=1 disables.
-_COMPACT_SPH = not bool(os.environ.get("ART_TPU_NO_COMPACT_SPH"))
-# Occlusion-gated needy predicate for the compact pass: measured a 0.6%
-# SEPARATED loss on final_scene (queue_r5d.log — the gate rarely flips a
-# cluster-facing dispatch under SPH_K, and its predicate/select cost is
-# real), so it is OPT-IN; bit-exact either way (on-chip receipt).
-_OCC_GATE = bool(os.environ.get("ART_TPU_OCC_GATE"))
-# Recentered tail MXU kernel as the compact pass's over-K dense fallback
-# (r5 experiment; see scene/builder.py tail-feature packing).
-_MXU_TAIL = bool(os.environ.get("ART_TPU_MXU_TAIL"))
-_COMPACT_SPH_MIN_TAIL = 512
-# Needy-skip binned sphere kernel (pallas_kernels._sphere_skip_kernel):
-# block-level tail-cluster pruning via 1-D y-bins.  Measured LOSS r4
-# (docs/logs/queue_r4a.log, final_scene baked-shade pinned off): as the
-# compact over-K fallback 64.98 vs 66.00 dense, standalone 61.69 vs
-# 64.77 dense, and the bin sweep is monotone (1 bin 63.84 / 16 61.69 /
-# 32 48.85) — cluster-FACING blocks cross every y-slab (each slab's
-# entry face is the cluster front), so the whens never skip and only
-# add merge overhead.  Opt-in ART_TPU_SPH_SKIP=1; superseded by the
-# occlusion-bounded 3-D tail lattice (ART_TPU_SPH_CELLBIN below).
-_NO_SPH_SKIP = not bool(os.environ.get("ART_TPU_SPH_SKIP"))
-# Cell-binned sphere kernel (pallas_kernels._sphere_cellbin_kernel):
-# block-level 2-D lattice pruning over the WHOLE sphere set (moving
-# included, per-row materials) for many-small-spheres scenes with no
-# uniform tail — bouncing_spheres' ~490-row dense scan.  Opt-in pending
-# the round-4 TPU A/B (queue r4e).
-_SPH_CELLBIN = bool(os.environ.get("ART_TPU_SPH_CELLBIN"))
-# Compact pass with the 3-D tail-lattice kernel as its over-K fallback
-# (instead of the dense scan).  Opt-in pending the round-4 TPU A/B.
-_COMPACT_CELLBIN = bool(os.environ.get("ART_TPU_COMPACT_CELLBIN"))
-# Per-ray BVH descent for spheres (opt-in): the direct analog of the
-# reference's log-n bvh_node::hit (src/bvh.cuh:95-106).  Measured on v5e
-# it loses by an order of magnitude to the brute-force vector kernels —
-# every traversal step is a per-lane node fetch, which XLA lowers to a
-# serial (R,) gather (docs/PERF_NOTES.md "BVH descent") — so the default
-# TPU designs are: brute unrolled VPU scan (wins at reference scene
-# sizes), BVH-leaf-order cluster culling (ART_TPU_CLUSTER), and the
-# lattice grid kernel.  This flag exists to measure that claim end-to-end
-# and to keep the reference's traversal wired through the render path.
+# Per-ray BVH descent for spheres (opt-in, ART_TPU_BVH=1): the direct analog
+# of the reference's log-n bvh_node::hit (src/bvh.cuh:95-106), kept wired
+# through the render path to measure it against the brute passes.  Read
+# once at import: it selects a trace-time code path.
 _BVH_ENV = bool(os.environ.get("ART_TPU_BVH"))
 # Per-primitive perf-debug ablation stubs (ART_TPU_DBG=fake_spheres /
 # fake_boxes / fake_quads / fake_media): replace one candidate pass with
 # cheap dependency-preserving arithmetic so the remaining passes' in-loop
-# cost can be read off a t_iter A/B.  Wrong image, measurement only —
-# same contract as integrator's fake_intersect/fake_shade.
+# cost can be read off a per-iteration A/B.  Wrong image, measurement
+# only — same contract as integrator's fake_intersect/fake_shade.
 _DBG = os.environ.get("ART_TPU_DBG", "")
 
 
@@ -205,10 +111,6 @@ def _fake_candidates(o, d, tm):
     t = jnp.abs(o[0] * 1e-6 + d[0]) + 5.0 + tm * 0.0
     z = jnp.zeros_like(t)
     return t, (z + 1.0, z, z), z, z, jnp.zeros(t.shape, jnp.int32)
-
-
-def _no_cluster() -> bool:
-    return not _CLUSTER_ENV
 
 
 # --------------------------------------------------------------------------
@@ -373,11 +275,7 @@ def box_candidates_p(tables: SceneTables, o, d, t_min):
 def sphere_attributes_p(tables: SceneTables, o, d, time, t, idx, needs_uv: bool):
     """Normal/uv for the winning sphere (src/sphere.cuh:69-86).
 
-    One packed-row fetch supplies center/velocity/radius/material.
-
-    Assembles an original-order row table on the fly: ``tables.sph_packed``
-    is kernel-ordered (moving-first, pack_spheres) while ``idx`` comes from
-    ``sphere_candidates_p`` which scans ``tables.sph_*`` in scene order."""
+    One packed-row fetch supplies center/velocity/radius/material."""
     from art_tpu.ops.gather import take_rows
 
     tab = jnp.concatenate(
@@ -516,203 +414,57 @@ def box_attributes_p(tables: SceneTables, o, d, t, idx):
 # Closest surface hit across all segments (planar core)
 # --------------------------------------------------------------------------
 
+def closest_candidates_p(tables: SceneTables, o, d, time, t_min):
+    """(t_best, winner, idx_s, idx_q, idx_b) from the candidate passes.
+
+    Families merge quads -> boxes -> spheres with strict ``<``, so an exact
+    tie keeps the earlier family (coplanar Cornell floor/box faces resolve
+    to the quad); within a family argmin keeps the lower row.  ``winner``
+    is -1 on a miss, 0 sphere, 1 quad, 2 box."""
+    R = o[0].shape[0]
+    t_best = jnp.full((R,), BIG, jnp.float32)
+    winner = jnp.full((R,), -1, jnp.int32)
+    idx_s = idx_q = idx_b = jnp.zeros((R,), jnp.int32)
+
+    def merge(t, family, t_best, winner):
+        better = t < t_best
+        return jnp.where(better, t, t_best), jnp.where(better, family, winner)
+
+    if tables.n_quads:
+        if "fake_quads" in _DBG:
+            t_q, *_ = _fake_candidates(o, d, time)
+        else:
+            t_q, idx_q = quad_candidates_p(tables, o, d, t_min)
+        t_best, winner = merge(t_q, 1, t_best, winner)
+    if tables.n_boxes:
+        if "fake_boxes" in _DBG:
+            t_b, *_ = _fake_candidates(o, d, time)
+        else:
+            t_b, idx_b = box_candidates_p(tables, o, d, t_min)
+        t_best, winner = merge(t_b, 2, t_best, winner)
+    if tables.n_spheres:
+        if "fake_spheres" in _DBG:
+            t_s, *_ = _fake_candidates(o, d, time)
+        elif _BVH_ENV and tables.n_sph_bvh_nodes:
+            t_s, idx_s = bvh_sphere_candidates_p(tables, o, d, time, t_min)
+        else:
+            t_s, idx_s = sphere_candidates_p(tables, o, d, time, t_min)
+        t_best, winner = merge(t_s, 0, t_best, winner)
+    return t_best, winner, idx_s, idx_q, idx_b
+
+
 def closest_surface_p(tables: SceneTables, o, d, time, t_min) -> HitRecordP:
     R = o[0].shape[0]
     # UV coordinates only feed image/uv_offset textures; skip the
     # transcendentals when the scene has none (static specialization).
     needs_uv = bool({2, 6} & set(tables.tex_types_present))
-    t_best = jnp.full((R,), BIG, jnp.float32)
-    winner = jnp.full((R,), -1, jnp.int32)  # 0=sphere 1=quad 2=box
-    idx_q = idx_b = jnp.zeros((R,), jnp.int32)
-    sph_attrs = None  # (normal, u, v, mat) straight from the sphere kernel
-    idx_s = None
+    if time is None:
+        time = jnp.zeros((R,), jnp.float32)
 
-    # The Pallas kernels bake the reference epsilon (T_MIN = 1e-3) as a
-    # compile-time constant; a different t_min must fall back to the jnp
-    # path or the two paths would silently diverge near surfaces.
-    static_t_min = isinstance(t_min, (int, float, np.floating)) and float(
-        t_min
-    ) == float(T_MIN)
-    use_pallas = _use_pallas(R) and static_t_min
-    if use_pallas:
-        from art_tpu.ops import pallas_kernels as pk
+    t_best, winner, idx_s, idx_q, idx_b = closest_candidates_p(
+        tables, o, d, time, t_min
+    )
 
-    if tables.n_quads:
-        if "fake_quads" in _DBG:
-            t_q, *_ = _fake_candidates(o, d, time)
-        elif use_pallas:
-            t_q, idx_q = pk.quad_closest_hit_planar(
-                tables.quad_packed, o, d, n_quads=tables.n_quads
-            )
-            idx_q = jnp.maximum(idx_q, 0)
-        else:
-            t_q, idx_q = quad_candidates_p(tables, o, d, t_min)
-        better = t_q < t_best
-        t_best = jnp.where(better, t_q, t_best)
-        winner = jnp.where(better, 1, winner)
-    box_attrs = None
-    if tables.n_boxes and "fake_boxes" in _DBG:
-        t_b, n_b, u_b, v_b, m_b = _fake_candidates(o, d, time)
-        box_attrs = (n_b, u_b, v_b, m_b)
-        better = t_b < t_best
-        t_best = jnp.where(better, t_b, t_best)
-        winner = jnp.where(better, 2, winner)
-    elif tables.n_boxes:
-        if use_pallas:
-            if tables.n_box_clusters and not _no_cluster():
-                t_b, n_b, u_b, v_b, m_b = pk.box_hit_attrs_clustered(
-                    tables.box_cl_packed, tables.box_cl_box, o, d,
-                    n_clusters=tables.n_box_clusters,
-                    rotated=tables.has_rotated_boxes,
-                )
-            elif tables.box_grid_kx and not _NO_GRID_BOXES:
-                if tables.box_grid_cells is not None and not _NO_GRID_STATIC:
-                    t_b, n_b, u_b, v_b, m_b = pk.box_grid_static_hit_attrs(
-                        o, d, cells=tables.box_grid_cells,
-                        kx=tables.box_grid_kx, kz=tables.box_grid_kz,
-                        x0=tables.box_grid_x0, z0=tables.box_grid_z0,
-                        w=tables.box_grid_w, y0=tables.box_grid_y0,
-                        uniform_mat=tables.box_grid_mat,
-                    )
-                else:
-                    t_b, n_b, u_b, v_b, m_b = pk.box_grid_hit_attrs(
-                        tables.box_grid, o, d,
-                        kx=tables.box_grid_kx, kz=tables.box_grid_kz,
-                        x0=tables.box_grid_x0, z0=tables.box_grid_z0,
-                        w=tables.box_grid_w, y0=tables.box_grid_y0,
-                        uniform_mat=tables.box_grid_mat,
-                    )
-            else:
-                t_b, n_b, u_b, v_b, m_b = pk.box_hit_attrs_planar(
-                    tables.box_packed, o, d,
-                    n_boxes=tables.n_boxes, rotated=tables.has_rotated_boxes,
-                )
-            box_attrs = (n_b, u_b, v_b, m_b)
-        else:
-            t_b, idx_b = box_candidates_p(tables, o, d, t_min)
-        better = t_b < t_best
-        t_best = jnp.where(better, t_b, t_best)
-        winner = jnp.where(better, 2, winner)
-
-    # Spheres intersect LAST so the compacted tail pass can occlusion-
-    # gate its needy predicate with the quad/box winner t: a tail-
-    # cluster hit at t >= cluster-entry > occ_t always loses the
-    # closest-t merge, so gated-out rays are exact to skip.  (Merge
-    # order is argmin-commutative; quad-before-box tie precedence —
-    # coplanar Cornell floor/box faces — is preserved.)
-    occ_t = t_best
-    if tables.n_spheres and "fake_spheres" in _DBG:
-        t_s, n_s, u_s, v_s, m_s = _fake_candidates(o, d, time)
-        sph_attrs = (n_s, u_s, v_s, m_s)
-        better = t_s < t_best
-        t_best = jnp.where(better, t_s, t_best)
-        winner = jnp.where(better, 0, winner)
-    elif tables.n_spheres:
-        if _BVH_ENV and tables.n_sph_bvh_nodes:
-            # opt-in per-ray BVH descent (reference-style traversal);
-            # winner attributes via the idx gather path below
-            t_s, idx_s = bvh_sphere_candidates_p(tables, o, d, time, t_min)
-        elif use_pallas:
-            # Winner attributes come out of the kernel — no table gather.
-            if tables.n_sphere_clusters and not _no_cluster():
-                t_s, n_s, u_s, v_s, m_s = pk.sphere_hit_attrs_clustered(
-                    tables.sph_cl_packed, tables.sph_cl_box, o, d, time,
-                    n_clusters=tables.n_sphere_clusters,
-                    moving=tables.has_moving, needs_uv=needs_uv,
-                )
-            elif tables.mxu_sphere_pad and _MXU_SPHERES:
-                t_s, n_s, u_s, v_s, m_s = pk.sphere_hit_attrs_mxu(
-                    tables.sph_mxu_feat, tables.sph_mxu_attr, o, d, time,
-                    s_pad=tables.mxu_sphere_pad, needs_uv=needs_uv,
-                )
-            elif tables.sph_static_cells is not None and _SPH_STATIC:
-                t_s, n_s, u_s, v_s, m_s = pk.sphere_static_hit_attrs(
-                    o, d, time,
-                    cells=tables.sph_static_cells,
-                    tail_r=tables.sph_tail_r,
-                    tail_mat=tables.sph_tail_mat,
-                    pos_r=tables.sph_pos_r and not _NO_SPH_POS_R,
-                    expand=not _NO_SPH_EXPAND
-                    and (_FORCE_SPH_EXPAND or tables.sph_expand),
-                    needs_uv=needs_uv,
-                )
-            else:
-                # ART_TPU_SPH_EXPAND is a true force: it overrides both
-                # the builder precision gate and the count gate (an A/B
-                # that silently measured the non-expanded loop would
-                # record wrong numbers).  Default: precision AND count.
-                expand = not _NO_SPH_EXPAND and (
-                    _FORCE_SPH_EXPAND
-                    or (
-                        tables.sph_expand
-                        and tables.sph_n_static >= _SPH_EXPAND_MIN_STATIC
-                    )
-                )
-                pos_r = tables.sph_pos_r and not _NO_SPH_POS_R
-                from art_tpu.ops.compact_sphere import SPH_K
-
-                use_skip = (
-                    not _NO_SPH_SKIP
-                    and not _NO_SPH_TAIL
-                    and tables.sph_skip_bins is not None
-                    and tables.sph_tail_box
-                )
-                if _SPH_CELLBIN and tables.sph_cellbin_meta is not None:
-                    t_s, n_s, u_s, v_s, m_s = pk.sphere_cellbin_hit_attrs(
-                        tables.sph_cellbin_packed, o, d, time,
-                        meta=tables.sph_cellbin_meta,
-                        pos_r=pos_r, expand=expand, needs_uv=needs_uv,
-                    )
-                elif (
-                    _COMPACT_SPH
-                    and not _NO_SPH_TAIL
-                    and tables.sph_n_tail >= _COMPACT_SPH_MIN_TAIL
-                    and tables.sph_tail_box
-                    and R > SPH_K
-                    and R < (1 << 24)
-                ):
-                    from art_tpu.ops.compact_sphere import (
-                        sphere_hit_attrs_split,
-                    )
-
-                    t_s, n_s, u_s, v_s, m_s = sphere_hit_attrs_split(
-                        tables, o, d, time,
-                        needs_uv=needs_uv, expand=expand, pos_r=pos_r,
-                        occ_t=occ_t if _OCC_GATE else None,
-                        use_mxu_tail=_MXU_TAIL,
-                        use_skip=use_skip,
-                        use_cellbin=(
-                            _COMPACT_CELLBIN
-                            and tables.sph_cellbin_meta is not None
-                        ),
-                    )
-                elif use_skip:
-                    t_s, n_s, u_s, v_s, m_s = pk.sphere_skip_hit_attrs(
-                        tables.sph_skip_packed, o, d, time,
-                        meta=tables.sph_skip_bins,
-                        tail_box=tables.sph_tail_box,
-                        tail_r=tables.sph_tail_r,
-                        tail_mat=tables.sph_tail_mat,
-                        pos_r=pos_r, expand=expand, needs_uv=needs_uv,
-                    )
-                else:
-                    t_s, n_s, u_s, v_s, m_s = pk.sphere_hit_attrs_planar(
-                        tables.sph_packed, o, d, time,
-                        n_moving=tables.sph_n_moving_pad,
-                        n_static=tables.sph_n_static,
-                        needs_uv=needs_uv,
-                        expand=expand,
-                        n_tail=0 if _NO_SPH_TAIL else tables.sph_n_tail,
-                        tail_r=tables.sph_tail_r,
-                        tail_mat=tables.sph_tail_mat,
-                        pos_r=pos_r,
-                    )
-            sph_attrs = (n_s, u_s, v_s, m_s)
-        else:
-            t_s, idx_s = sphere_candidates_p(tables, o, d, time, t_min)
-        better = t_s < t_best
-        t_best = jnp.where(better, t_s, t_best)
-        winner = jnp.where(better, 0, winner)
     hit = winner >= 0
     # Hit point is o + t*d for every surface type: computed once.
     p = p_ray_at(o, d, t_best)
@@ -732,10 +484,11 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min) -> HitRecordP:
         )
 
     if tables.n_spheres:
-        attrs = sph_attrs if sph_attrs is not None else sphere_attributes_p(
-            tables, o, d, time, t_best, idx_s, needs_uv
+        normal, uu, vv, mat = blend(
+            winner == 0,
+            sphere_attributes_p(tables, o, d, time, t_best, idx_s, needs_uv),
+            normal, uu, vv, mat,
         )
-        normal, uu, vv, mat = blend(winner == 0, attrs, normal, uu, vv, mat)
     if tables.n_quads:
         normal, uu, vv, mat = blend(
             winner == 1,
@@ -743,10 +496,11 @@ def closest_surface_p(tables: SceneTables, o, d, time, t_min) -> HitRecordP:
             normal, uu, vv, mat,
         )
     if tables.n_boxes:
-        attrs = box_attrs if box_attrs is not None else box_attributes_p(
-            tables, o, d, t_best, idx_b
+        normal, uu, vv, mat = blend(
+            winner == 2,
+            box_attributes_p(tables, o, d, t_best, idx_b),
+            normal, uu, vv, mat,
         )
-        normal, uu, vv, mat = blend(winner == 2, attrs, normal, uu, vv, mat)
 
     return HitRecordP(hit=hit, t=t_best, p=p, normal=normal, u=uu, v=vv, mat=mat)
 

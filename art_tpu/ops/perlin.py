@@ -43,7 +43,7 @@ def u2m11(h: jnp.ndarray) -> jnp.ndarray:
 def grad_p(xi: jnp.ndarray, yi: jnp.ndarray, zi: jnp.ndarray):
     """Pseudo-random unit gradient per lattice point (src/perlin.cuh:28-32).
 
-    Returns a 3-tuple of component planes (TPU-friendly layout)."""
+    Returns a 3-tuple of component planes."""
     h = wanghash(mix3(xi, yi, zi))
     gx = u2m11(h)
     gy = u2m11(wanghash(h))

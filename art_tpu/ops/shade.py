@@ -48,10 +48,9 @@ def _ball_from_uniforms_p(u0, u1, u2):
     return (r * s * jnp.cos(phi), r * s * jnp.sin(phi), r * z)
 
 
-def shade_params_p(tables: SceneTables, rec: HitRecordP, valid=None):
-    """Per-ray material/texture parameter fetch shared by shade_p and the
-    fused shade kernel (ops/shade_kernel.py): one packed MXU fetch for all
-    material parameters (ops/gather.py layout
+def shade_params_p(tables: SceneTables, rec: HitRecordP):
+    """Per-ray material/texture parameter fetch: one packed row fetch for
+    all material parameters (ops/gather.py layout
     [type, tex, fuzz, ref_idx, r, g, b, _]) plus one texture evaluation
     (serves lambertian/isotropic attenuation and diffuse_light emission —
     all are texture-backed rows).
@@ -62,9 +61,7 @@ def shade_params_p(tables: SceneTables, rec: HitRecordP, valid=None):
 
     mrow = take_rows(tables.mat_packed, rec.mat)
     tex_id = mrow[:, 1].astype(jnp.int32)
-    tex_val = eval_texture_p(
-        tables, tex_id, rec.u, rec.v, rec.p, valid=valid
-    )
+    tex_val = eval_texture_p(tables, tex_id, rec.u, rec.v, rec.p)
     return (mrow[:, 0], mrow[:, 2], mrow[:, 3],
             (mrow[:, 4], mrow[:, 5], mrow[:, 6]), tex_val)
 
@@ -75,13 +72,8 @@ def shade_p(
     rec: HitRecordP,
     u_ball,  # 3-tuple of (R,) uniforms
     u_choice: jnp.ndarray,  # (R,)
-    valid=None,  # (R,) bool: lanes whose shade output is consumed
-    #             (dead/miss lanes may receive zero texels — the
-    #             compacted image fetch skips them)
 ) -> ScatterResultP:
-    mtype_f, fuzz, ref_idx, metal_albedo, tex_val = shade_params_p(
-        tables, rec, valid=valid
-    )
+    mtype_f, fuzz, ref_idx, metal_albedo, tex_val = shade_params_p(tables, rec)
     mtype = mtype_f.astype(jnp.int32)
     n = rec.normal
 

@@ -1,14 +1,16 @@
 """Multi-chip rendering via shard_map over a 2-D device mesh.
 
 The reference is strictly single-GPU (no NCCL/MPI anywhere — SURVEY.md §2).
-The TPU-native scaling story is data parallelism over the pixel grid plus
+The scaling story is data parallelism over the pixel grid plus
 sample parallelism over spp, laid out on a ``Mesh(('px', 'spp'))``:
 
 * pixels are sharded over the ``px`` axis (embarrassingly parallel, zero
   collectives, rides nothing);
 * each ``spp`` shard renders an independent sample chunk for the *same*
   pixels and the partial sums are combined with a single ``psum`` over the
-  ``spp`` axis — the only collective in the renderer, riding ICI;
+  ``spp`` axis — the only collective in the renderer, which XLA hands to
+  NCCL; the four cards of one host are joined all to all by NVLink, so the
+  mesh shape follows the work split alone;
 * scene tables and camera are fully replicated (the whole reference scene
   fits in a 256 MB device heap, src/main.cu:1182).
 
@@ -84,7 +86,7 @@ def sharded_render_step(
         k = artrng.fold(key, ip, isp)
         # pix_l is a contiguous block of pixel ids; the wavefront only needs
         # its start offset.
-        rad, rays, *_aux = render_wavefront(
+        rad, rays, _ = render_wavefront(
             tables, cam, pix_l[0], spp_chunk, k, bg,
             tile_pixels=pix_l.shape[0], total_pixels=nx * ny,
             nx=nx, ny=ny, max_depth=max_depth,
@@ -114,9 +116,8 @@ def _sharded_step_jit(mesh, nx, ny, spp_chunk, max_depth, gradient_bg,
     a fresh ``jax.jit(partial(...))`` per call has a new function
     identity, so every render re-traced and re-compiled the whole
     sharded program — measured 11.2 s for a SECOND identical call on
-    the CPU mesh (vs 11.4 cold), and a 0.157 sharded/unsharded
-    throughput ratio on real TPU (docs/logs/queue_r4h.log) where the
-    unsharded path's module-level ``_wavefront_jit`` reused its cache.
+    the CPU mesh (vs 11.4 cold), while the unsharded path's
+    module-level ``_wavefront_jit`` reused its cache.
     Mesh objects hash by device layout, so equal meshes share the
     entry."""
     return jax.jit(

@@ -3,9 +3,8 @@
 The reference launches one CUDA thread per pixel looping ns samples
 (reference src/main.cu:107-133).  Here the driver feeds the persistent
 wavefront integrator: each jit dispatch renders a (pixel-tile x sample
-chunk) queue through a fixed pool of ray slots.  On TPU the pool is sized
-for the fused Pallas intersection kernels; on CPU it is sized to bound the
-jnp (R x N) working set.
+chunk) queue through a fixed pool of ray slots, sized to bound the
+(R x N) working set of the brute-force intersection passes.
 """
 
 from __future__ import annotations
@@ -35,35 +34,22 @@ class RenderConfig:
     max_depth: int = 50  # reference hardcodes 50 (src/main.cu:54)
     gamma: float = 2.2
     seed: int = 1984  # reference seed (src/main.cu:92)
-    # CPU path: max (R x N) intersection elements per iteration
+    # max (R x N) intersection elements per iteration
     batch_budget: int = 1 << 23
-    # TPU path: slot-pool size (rounded to the Pallas ray block)
-    tpu_slots: int = 1 << 17
     max_slots: int = 1 << 16
-    # max pixels per tile: bounds the framebuffer scatter target (the
-    # XLA TPU scatter cost scales with target size; 2^16-pixel tiles with
-    # deep sample queues measured fastest)
+    # max pixels per tile: bounds the framebuffer scatter target
     max_tile_pixels: int = 1 << 16
     # max queue elements (pixel-samples) per jit dispatch; deep queues
-    # amortize the drain tail (occupancy 0.66 -> 0.94 measured)
+    # amortize the drain tail, where the pool empties
     queue_budget: int = 1 << 25
 
 
 def plan_batches(n_pixels: int, spp: int, n_prims_max: int, cfg: RenderConfig):
     """Choose (tile_pixels, spp_chunk, n_slots) for the wavefront pool."""
-    from art_tpu.core.platform import tpu_paths
-
-    if tpu_paths():
-        from art_tpu.ops.pallas_kernels import RAY_BLOCK
-
-        slots = int(os.environ.get("ART_TPU_SLOTS", 0)) or cfg.tpu_slots
-        n_slots = max(RAY_BLOCK, (slots // RAY_BLOCK) * RAY_BLOCK)
-    else:
-        n_prims_max = max(n_prims_max, 1)
-        n_slots = max(1024, min(cfg.max_slots, cfg.batch_budget // n_prims_max))
-    # experiment overrides (see docs/PERF_NOTES.md tile-size measurements)
-    max_tile = int(os.environ.get("ART_TPU_TILE", 0)) or cfg.max_tile_pixels
-    queue_budget = int(os.environ.get("ART_TPU_QUEUE", 0)) or cfg.queue_budget
+    n_prims_max = max(n_prims_max, 1)
+    n_slots = max(1024, min(cfg.max_slots, cfg.batch_budget // n_prims_max))
+    max_tile = cfg.max_tile_pixels
+    queue_budget = cfg.queue_budget
     tile_pixels = min(n_pixels, max_tile)
     # Balance tiles: ceil-dividing 360000 px into 65536-px tiles would pad
     # the last tile with 8.5% clamped (wasted) pixels; distributing the
@@ -82,13 +68,7 @@ def plan_batches(n_pixels: int, spp: int, n_prims_max: int, cfg: RenderConfig):
     # wasted oversampling work (they are normalized out, but cost time).
     n_q = tile_pixels * spp_chunk
     if n_slots > n_q:
-        if tpu_paths():
-            # Round UP to the Pallas ray block — a non-multiple pool would
-            # silently disable every Pallas path (intersection, fused
-            # refill, flush) via their R % RAY_BLOCK gates.
-            n_slots = -(-n_q // RAY_BLOCK) * RAY_BLOCK
-        else:
-            n_slots = max(256, n_q)
+        n_slots = max(256, n_q)
     return tile_pixels, spp_chunk, n_slots
 
 
@@ -254,7 +234,7 @@ def render_scene(
             if dispatch <= done_dispatches:
                 continue
             k = artrng.fold(master, tile, chunk)
-            batch, rays, iters, *aux = _wavefront_jit(
+            batch, rays, iters = _wavefront_jit(
                 tables,
                 cam,
                 jnp.int32(lo),
@@ -273,14 +253,6 @@ def render_scene(
             fb[lo:hi] += np.asarray(batch)[: hi - lo]
             total_rays += float(rays)
             total_iters += int(iters)
-            if aux:  # ART_TPU_STATS_NEEDY instrumentation (integrator.py)
-                a = np.asarray(aux[0])
-                print(
-                    f"needy_hist(R/16 buckets)={a[:16].tolist()} "
-                    f"total_needy={int(a[16])} total_active={int(a[17])} "
-                    f"compact_iters={int(a[18])}",
-                    file=sys.stderr,
-                )
             if checkpoint_path:
                 save_ckpt(dispatch)
 

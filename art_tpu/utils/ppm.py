@@ -1,4 +1,4 @@
-"""PPM P3 output with the reference's exact contract.
+"""PPM P3 output with the reference's exact contract, plus a PNG copy.
 
 The reference writes the image to **stdout** as ASCII PPM, rows top-down
 (j = ny-1 .. 0), each channel as ``int(255.99 * c)`` with **no clamping**
@@ -13,7 +13,9 @@ from __future__ import annotations
 import ctypes
 import io
 import os
+import struct
 import subprocess
+import zlib
 
 import numpy as np
 
@@ -100,6 +102,35 @@ def format_ppm(fb: np.ndarray, clamp: bool = False) -> str:
 
 def write_ppm(fb: np.ndarray, stream, clamp: bool = False) -> None:
     stream.write(format_ppm(fb, clamp=clamp))
+
+
+def png_bytes(fb: np.ndarray) -> bytes:
+    """Encode a (ny, nx, 3) framebuffer (row 0 = bottom, values in [0, 1])
+    as an 8-bit RGB PNG, top row first, with the standard library only."""
+    img = (np.clip(np.asarray(fb, np.float64)[::-1], 0.0, 1.0) * 255.0 + 0.5)
+    img = np.ascontiguousarray(img.astype(np.uint8))
+    ny, nx, _ = img.shape
+    # filter type 0 (none) before every scanline
+    raw = np.concatenate(
+        [np.zeros((ny, 1), np.uint8), img.reshape(ny, nx * 3)], axis=1
+    ).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (
+            struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+        )
+
+    ihdr = struct.pack(">IIBBBBB", nx, ny, 8, 2, 0, 0, 0)
+    return (
+        b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+        + chunk(b"IDAT", zlib.compress(raw, 9)) + chunk(b"IEND", b"")
+    )
+
+
+def write_png(fb: np.ndarray, path: str) -> None:
+    with open(path, "wb") as f:
+        f.write(png_bytes(fb))
 
 
 def read_ppm(text: str) -> np.ndarray:

@@ -36,7 +36,8 @@ if os.environ.get("ART_TPU_CPU"):
 from art_tpu.models import build_scene
 from art_tpu.render.renderer import RenderConfig, render_scene
 
-GOLDEN_DIR = "/root/reference/images"
+# the reference repository's images/ directory
+GOLDEN_DIR = os.environ.get("ART_TPU_REFERENCE_IMAGES", "reference/images")
 
 # scene -> (golden file, spp for our quick render)
 MAPPING = {

@@ -1,82 +1,37 @@
 """Render scenes at their OFFICIAL reference configs (models/scenes._DEFAULTS,
-mirroring /root/reference main.cu) and save PNGs + timing to
-docs/renders/full/.
+mirroring the reference's main.cu) and save PNGs to docs/renders/full/.
 
-    python scripts/render_official.py [scene ...]
+    python scripts/render_official.py scene [scene ...]
 
-Uses the persistent compile cache; every render records wall-clock and
-Mrays/s into docs/renders/full/timings.json (merged across runs).
-
-The timed render is preceded by a warm-up render of one sample chunk with
-identical static shapes (tile_pixels, spp_chunk, n_slots), so trace +
-compile-cache-load time is excluded: round-2 timings measured without the
-warm-up understated the 500-spp scenes ~3x (quads 76.6 vs 258 Mrays/s
-steady-state).  Pass --cold to reproduce the old behavior.
+These renders are the images the golden statistics in tests/goldens/official
+derive from (scripts/gen_self_goldens.py official).  Run on a GPU: the
+10,000-spp configs take hours on a CPU.
 """
 
-import os as _os, sys as _sys
-# importable from any cwd without PYTHONPATH: repo root hosts art_tpu/
-_sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
-
-import json
 import os
 import sys
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
-from PIL import Image
-
-from art_tpu.models import build_scene, scene_defaults
-from art_tpu.render.renderer import RenderConfig, render_scene
+from art_tpu.core.cache import enable_compile_cache  # noqa: E402
+from art_tpu.models import build_scene, scene_defaults  # noqa: E402
+from art_tpu.render.renderer import RenderConfig, render_scene  # noqa: E402
+from art_tpu.utils.ppm import write_png  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "docs", "renders", "full")
 
 
 def main():
-    names = [a for a in sys.argv[1:] if not a.startswith("--")]
-    cold = "--cold" in sys.argv
+    enable_compile_cache()
     os.makedirs(OUT, exist_ok=True)
-    tpath = os.path.join(OUT, "timings.json")
-    timings = {}
-    if os.path.exists(tpath):
-        timings = json.load(open(tpath))
-    for name in names:
-        cfg_d = scene_defaults(name)
-        nx, ny, spp = cfg_d["nx"], cfg_d["ny"], cfg_d["spp"]
+    for name in sys.argv[1:]:
+        d = scene_defaults(name)
+        nx, ny, spp = d["nx"], d["ny"], d["spp"]
         print(f"[{name}] official {nx}x{ny} spp={spp}", flush=True)
-        scene = build_scene(name, nx, ny)
-        cfg = RenderConfig(nx=nx, ny=ny, spp=spp)
-        if not cold:
-            # one-chunk warm-up with the same static shapes compiles the
-            # exact program the timed render dispatches
-            from art_tpu.render.renderer import plan_batches
-
-            _, spp_chunk, _ = plan_batches(
-                nx * ny,
-                spp,
-                max(scene.tables.n_spheres, scene.tables.n_quads,
-                    scene.tables.n_boxes, 1),
-                cfg,
-            )
-            render_scene(scene, RenderConfig(nx=nx, ny=ny, spp=spp_chunk))
-        fb, stats = render_scene(scene, cfg, verbose=True)
-        img = np.clip(fb[::-1], 0.0, 1.0)
-        Image.fromarray((img * 255).astype(np.uint8)).save(
-            os.path.join(OUT, f"{name}_official.png")
-        )
-        timings[name] = {
-            "nx": nx, "ny": ny, "spp": spp,
-            "seconds": round(stats["seconds"], 2),
-            "mrays_per_sec": round(stats["mrays_per_sec"], 2),
-        }
-        json.dump(timings, open(tpath, "w"), indent=1)
-        print(f"[{name}] {stats['seconds']:.1f}s {stats['mrays_per_sec']:.1f} Mrays/s",
-              flush=True)
+        fb, _ = render_scene(build_scene(name, nx, ny),
+                             RenderConfig(nx=nx, ny=ny, spp=spp), verbose=True)
+        write_png(fb, os.path.join(OUT, f"{name}_official.png"))
 
 
 if __name__ == "__main__":

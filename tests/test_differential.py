@@ -1,35 +1,29 @@
 """Randomized scene-level differential test.
 
-The production Pallas intersection dispatch — ``closest_surface_p`` with
-every backend gate answering TPU (ART_TPU_FORCE_PALLAS) and every
-``pallas_call`` executed in interpret mode — must match the portable jnp
-path on scenes *generated at random*, not just the 10 fixed reference
-scenes.  This covers builder-gate combinations the fixed scenes never
-exercise together: a >=192-row (radius, material)-uniform tail next to a
-hollow (negative-radius) shell (pos_r False => carry-r path), moving and
-static spheres in one small pool, rotated and axis-aligned boxes in one
-table, arbitrary Translate/RotateY chains.
-
-tests/test_pallas_kernels.py checks each kernel in isolation on the real
-scene tables; this file checks the *dispatch wiring* end to end (winner
-selection across primitive families included).
+``closest_surface_p`` must match a float64 NumPy reference
+(tests/hit_reference.py) on scenes *generated at random*, not just the
+registered scenes.  This covers combinations the fixed scenes never
+exercise together: a 200-sphere (radius, material)-uniform cluster next to
+a hollow (negative-radius) shell, moving and static spheres in one small
+pool, rotated and axis-aligned boxes in one table, arbitrary
+Translate/RotateY chains — winner selection across primitive families and
+the winner's material and sphere normal included.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental import pallas as pl_module
 
-from art_tpu.core.vecmath import BIG, T_MIN
+from art_tpu.core.vecmath import T_MIN
 from art_tpu.ops import intersect
-from art_tpu.ops import pallas_kernels as pk
 from art_tpu.scene.builder import SceneBuilder
 from art_tpu.scene.materials import Dielectric, DiffuseLight, Lambertian, Metal
 from art_tpu.scene.objects import Box, Quad, RotateY, Sphere, Translate
 from art_tpu.scene.textures import Checker, SolidColor
+from hit_reference import reference_hits
 
-RB = pk.RAY_BLOCK
+N_RAYS = 4096
 
 
 def _random_scene(seed: int):
@@ -101,65 +95,52 @@ def _ray_batch(seed: int, n: int):
     return (o[:, 0], o[:, 1], o[:, 2]), (d[:, 0], d[:, 1], d[:, 2]), tm
 
 
-def _interpret_pallas(monkeypatch):
-    """Force every backend gate TPU-wards and every pallas_call to
-    interpret mode so the production dispatch executes on this CPU host."""
-    monkeypatch.setenv("ART_TPU_FORCE_PALLAS", "1")
-    orig = pl_module.pallas_call
-
-    def patched(*args, **kwargs):
-        kwargs["interpret"] = True
-        return orig(*args, **kwargs)
-
-    monkeypatch.setattr(pl_module, "pallas_call", patched)
-
-
 @pytest.mark.parametrize("seed", [11, 23])
-def test_random_scene_dispatch_matches_jnp(seed, monkeypatch):
+def test_random_scene_matches_float64_reference(seed):
     scene = _random_scene(seed)
     tables = scene.tables
-    # the generated scene must actually trigger the special kernel forms
-    assert tables.sph_n_tail >= 192
-    assert not tables.sph_pos_r  # hollow shell present
-    assert tables.n_boxes >= 4 and tables.quad_n.shape[0] >= 2
+    # the generated scene must hold every primitive form
+    assert (np.asarray(tables.sph_radius) < 0).any()  # hollow shell
+    assert tables.has_moving and tables.has_rotated_boxes
+    assert tables.n_boxes >= 4 and tables.n_quads >= 2
 
-    o, d, tm = _ray_batch(seed, RB)
-    rec_j = intersect.closest_surface_p(tables, o, d, tm, T_MIN)
+    o, d, tm = _ray_batch(seed, N_RAYS)
+    rec = intersect.closest_surface_p(tables, o, d, tm, T_MIN)
+    t_ref, kind, idx = reference_hits(tables, o, d, tm)
 
-    _interpret_pallas(monkeypatch)
-    assert intersect._use_pallas(RB)
-    rec_k = intersect.closest_surface_p(tables, o, d, tm, T_MIN)
-
-    hit_j = np.asarray(rec_j.hit)
-    hit_k = np.asarray(rec_k.hit)
-    assert hit_j.any() and (~hit_j).any()
+    hit_ref = kind >= 0
+    hit = np.asarray(rec.hit)
+    assert hit_ref.any() and (~hit_ref).any()
     # hit sets identical up to measure-zero tangents (none expected on
     # random float inputs)
-    np.testing.assert_array_equal(hit_k, hit_j)
+    np.testing.assert_array_equal(hit, hit_ref)
 
-    t_j = np.asarray(rec_j.t)
-    t_k = np.asarray(rec_k.t)
-    # all hits within loose tolerance; near-tie winners may swap between
-    # equal-t objects, so gate attributes on tight-t agreement
-    np.testing.assert_allclose(t_k[hit_j], t_j[hit_j], rtol=2e-2, atol=1e-2)
-    tight = np.isclose(t_k, t_j, rtol=2e-4, atol=1e-4) & hit_j
-    assert tight.mean() / max(hit_j.mean(), 1e-9) >= 0.98
+    t = np.asarray(rec.t)
+    np.testing.assert_allclose(t[hit_ref], t_ref[hit_ref], rtol=2e-2, atol=1e-2)
+    # near-tie winners may swap between equal-t objects, so gate the
+    # winner's attributes on tight-t agreement
+    tight = np.isclose(t, t_ref, rtol=2e-4, atol=1e-4) & hit_ref
+    assert tight.mean() / hit_ref.mean() >= 0.98
 
-    mat_match = np.asarray(rec_k.mat) == np.asarray(rec_j.mat)
+    mats = {0: tables.sph_mat, 1: tables.quad_mat, 2: tables.box_mat}
+    mat_ref = np.zeros_like(idx)
+    for k, col in mats.items():
+        mat_ref = np.where(kind == k, np.take(np.asarray(col), idx, mode="clip"),
+                           mat_ref)
+    mat_match = np.asarray(rec.mat) == mat_ref
     assert (mat_match | ~tight).mean() >= 0.995
 
-    check = tight & mat_match
+    # sphere normals: (p - center(time)) / signed radius, in float64
+    sph = tight & mat_match & (kind == 0)
+    assert sph.any()
+    o64 = np.stack([np.asarray(c, np.float64) for c in o], 1)[sph]
+    d64 = np.stack([np.asarray(c, np.float64) for c in d], 1)[sph]
+    i = idx[sph]
+    center = (np.asarray(tables.sph_center, np.float64)[i]
+              + np.asarray(tm, np.float64)[sph, None]
+              * np.asarray(tables.sph_vel, np.float64)[i])
+    n_ref = ((o64 + t_ref[sph, None] * d64 - center)
+             / np.asarray(tables.sph_radius, np.float64)[i, None])
     for c in range(3):
-        np.testing.assert_allclose(
-            np.asarray(rec_k.normal[c])[check],
-            np.asarray(rec_j.normal[c])[check],
-            rtol=5e-3, atol=5e-3,
-        )
-    np.testing.assert_allclose(
-        np.asarray(rec_k.u)[check], np.asarray(rec_j.u)[check],
-        rtol=5e-3, atol=5e-3,
-    )
-    np.testing.assert_allclose(
-        np.asarray(rec_k.v)[check], np.asarray(rec_j.v)[check],
-        rtol=5e-3, atol=5e-3,
-    )
+        np.testing.assert_allclose(np.asarray(rec.normal[c])[sph], n_ref[:, c],
+                                   rtol=5e-3, atol=5e-3)

@@ -123,106 +123,27 @@ def test_trace_direct_call():
     assert float(rays) >= n  # at least one bounce each
 
 
-def test_matmul_flush_matches_scatter_flush(monkeypatch):
-    """The MXU one-hot flush (TPU default) must reproduce the scatter-add
-    flush image to bf16-rounding tolerance."""
-    import numpy as np
-
-    from art_tpu.models import build_scene
-    from art_tpu.render import integrator
-    from art_tpu.render.renderer import RenderConfig, render_scene
+@pytest.mark.parametrize(
+    "mode", ["aos4", "planar", "planar_drop", "drop", "subslot"]
+)
+def test_flush_modes_match_scatter_flush(monkeypatch, mode):
+    """Every framebuffer flush mode accumulates the same radiance as the
+    default ``aos`` scatter-add (same samples; only the summation order
+    differs)."""
+    from art_tpu.render import integrator, renderer
 
     scene = build_scene("three_spheres", 48, 27)
     cfg = RenderConfig(nx=48, ny=27, spp=8, max_depth=8)
-
-    from art_tpu.render import renderer
-
     monkeypatch.setattr(integrator, "_FLUSH_ENV", "aos")
-    ref, _ = render_scene(scene, cfg)
     # the flush mode is not part of the jit cache key: force a retrace, or
     # the second render silently reuses the first compiled program
     renderer._wavefront_jit.clear_cache()
-    monkeypatch.setattr(integrator, "_FLUSH_ENV", "matmul")
-    got, _ = render_scene(scene, cfg)
-    assert not np.array_equal(got, ref)  # bf16 rounding must be visible
-    # identical sampling; only the flush arithmetic differs (one bf16
-    # rounding per died sample before an exact f32 accumulation)
-    np.testing.assert_allclose(got, ref, rtol=6e-3, atol=2e-3)
-
-
-@pytest.fixture(scope="module")
-def flush_ref_128x90():
-    """Shared scatter-flush ('aos') reference for the windowed and
-    adaptive flush tests (identical scene + config: one render, not
-    two).  Returns (scene, cfg, ref_fb); each consumer monkeypatches
-    its own flush mode and clears the jit cache itself."""
-    import numpy as np
-
-    from art_tpu.models import build_scene
-    from art_tpu.render import integrator, renderer
-    from art_tpu.render.renderer import RenderConfig, render_scene
-
-    # P=11520 px -> n_hi 96 > window rows R*max_depth/(spp*128) = 16:
-    # the windowed path (n_hi_win < n_hi_pallas) is genuinely exercised.
-    scene = build_scene("three_spheres", 128, 90)
-    cfg = RenderConfig(
-        nx=128, ny=90, spp=32, max_depth=8,
-        max_slots=8192, batch_budget=1 << 30,
-    )
-    saved = integrator._FLUSH_ENV
-    integrator._FLUSH_ENV = "aos"
-    # A cached executable traced earlier under a different _FLUSH_ENV for
-    # these shapes would silently make the shared reference non-scatter
-    # (the flush mode is not part of the jit cache key).
+    ref, _ = render_scene(scene, cfg)
     renderer._wavefront_jit.clear_cache()
-    try:
-        ref, _ = render_scene(scene, cfg)
-    finally:
-        integrator._FLUSH_ENV = saved
-    return scene, cfg, np.asarray(ref)
-
-
-def test_windowed_pallas_flush_matches_scatter_flush(
-    monkeypatch, flush_ref_128x90
-):
-    """End-to-end wavefront render through the WINDOWED Pallas flush
-    (interpret mode) vs the scatter flush: validates the live-pixel band
-    invariant (an out-of-window died ray would silently drop radiance and
-    show up as a dimmer image here)."""
-    import numpy as np
-
-    from art_tpu.render import integrator, renderer
-    from art_tpu.render.renderer import render_scene
-
-    scene, cfg, ref = flush_ref_128x90
-    renderer._wavefront_jit.clear_cache()
-    monkeypatch.setattr(integrator, "_FLUSH_ENV", "pallas")
+    monkeypatch.setattr(integrator, "_FLUSH_ENV", mode)
     got, _ = render_scene(scene, cfg)
-    np.testing.assert_allclose(got, ref, rtol=6e-3, atol=2e-3)
-    # means must match to well under 1%: dropped rays would bias this
-    assert abs(got.mean() - ref.mean()) < 2e-4, (got.mean(), ref.mean())
-
-
-def test_adaptive_small_flush_window_matches_scatter_flush(
-    monkeypatch, flush_ref_128x90
-):
-    """ART_TPU_FLUSH_WIN (adaptive small window + exact cond fallback to
-    the worst-case window) must reproduce the scatter-flush image.  The
-    window is set SMALLER than the typical live band so the fallback
-    branch is genuinely taken some iterations, and big enough that the
-    small branch is too."""
-    import numpy as np
-
-    from art_tpu.render import integrator, renderer
-    from art_tpu.render.renderer import render_scene
-
-    scene, cfg, ref = flush_ref_128x90
     renderer._wavefront_jit.clear_cache()
-    monkeypatch.setattr(integrator, "_FLUSH_ENV", "pallas")
-    monkeypatch.setattr(integrator, "_FLUSH_WIN", 8)
-    got, _ = render_scene(scene, cfg)
-    np.testing.assert_allclose(got, ref, rtol=6e-3, atol=2e-3)
-    assert abs(got.mean() - ref.mean()) < 2e-4, (got.mean(), ref.mean())
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
 def test_plan_batches_balances_spp_chunks():
@@ -235,17 +156,3 @@ def test_plan_batches_balances_spp_chunks():
     n_chunks = -(-513 // spp_chunk)
     assert n_chunks * spp_chunk - 513 < n_chunks  # overshoot < 1/chunk
     assert spp_chunk == 257
-
-
-def test_plan_batches_tpu_slots_ray_block_aligned(monkeypatch):
-    """On the TPU path the slot pool must stay a RAY_BLOCK multiple even
-    when clamped to a small queue — a ragged pool silently disables every
-    Pallas kernel via the R % RAY_BLOCK gates."""
-    monkeypatch.setenv("ART_TPU_FORCE_PALLAS", "1")
-    from art_tpu.ops.pallas_kernels import RAY_BLOCK
-    from art_tpu.render.renderer import RenderConfig, plan_batches
-
-    cfg = RenderConfig(nx=400, ny=225, spp=1)
-    tile_pixels, spp_chunk, n_slots = plan_batches(400 * 225, 1, 8, cfg)
-    assert n_slots % RAY_BLOCK == 0
-    assert n_slots >= tile_pixels * spp_chunk  # pool still covers the queue
